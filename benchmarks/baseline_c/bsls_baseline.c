@@ -5,8 +5,8 @@
  * sort-based per-block simplex projection (arXiv:1101.6081), PAVA isotonic
  * regression, and projected gradient with an exact quadratic line search.
  * This binary produces the *measured* denominator for the >=10x
- * iterations/s target (BASELINE.md): no published reference numbers exist,
- * so the C baseline is benchmarked on this machine alongside the TPU build.
+ * iterations/s target: no published reference numbers exist, so the C
+ * baseline is benchmarked on the same host alongside the device build.
  *
  * Input: binary instance file (see io format below).  Output: one JSON line
  * with iterations/sec and the final objective.

@@ -5,6 +5,7 @@ import json
 import os
 import subprocess
 import struct
+import tempfile
 
 import numpy as np
 
@@ -40,9 +41,10 @@ def write_instance(problem, path: str) -> None:
 def run_baseline(problem, iters: int = 200, instance_path: str | None = None) -> dict:
     """Returns {'iters_per_sec':…, 'objective':…} measured on this machine."""
     build()
-    path = instance_path or "/tmp/bsls_instance.bin"
-    write_instance(problem, path)
-    out = subprocess.run(
-        [BIN, path, str(iters)], check=True, capture_output=True, text=True
-    )
+    with tempfile.TemporaryDirectory() as tmp:
+        path = instance_path or os.path.join(tmp, "instance.bin")
+        write_instance(problem, path)
+        out = subprocess.run(
+            [BIN, path, str(iters)], check=True, capture_output=True, text=True
+        )
     return json.loads(out.stdout.strip())

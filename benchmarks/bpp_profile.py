@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Profile prox_bpp_polish wall time vs KKT dimension (VERDICT r4 next #5).
+"""Profile prox_bpp_polish wall time vs KKT dimension .
 
 For each target KKT dimension: build a traffic-like eq instance, AL-solve it
 (fp32, CPU), then time the BPP polish twice — COLD (from the AL iterate) and

@@ -4,9 +4,9 @@
     python benchmarks/scaling.py --config medium --scenarios 8 \
         --blocks 1 2 4 8 --platform cpu8
 
-On a real pod slice this produces the BASELINE.json:5 numbers (1 chip /
-1 host / N hosts, efficiency vs linear); on this single-chip machine it is
-validated on the simulated CPU mesh.  Efficiency_n = (ips_n / ips_1) / n.
+On N real devices this produces the scaling numbers of BASELINE.json:5
+(efficiency vs linear); on a CPU-only host it is validated on the simulated
+CPU mesh.  Efficiency_n = (ips_n / ips_1) / n.
 """
 from __future__ import annotations
 
@@ -22,20 +22,21 @@ import numpy as np
 
 def analyze(config: str, blocks):
     """Analytic per-iteration communication/compute model for the block-
-    sharded step (the quantity that determines real-pod scaling, since the
-    simulated CPU mesh shares one socket and cannot measure wall-clock
-    efficiency).  Per iteration each device:
+    sharded step (the quantity that determines multi-device scaling,
+    since the simulated CPU mesh shares one socket and cannot measure
+    wall-clock efficiency).  Per iteration each device:
 
-      * gathers its shard's nonzeros (the dominant cost on this stack:
-        ~6 ns/row, BASELINE.md) — divides by the shard count;
+      * gathers its shard's nonzeros (the dominant cost) — divides by the
+        shard count;
       * psums the length-m residual partial over the block axis (the ONE
         vector collective, 4m bytes in fp32) + 3 scalar psums (line-search
         numerator/denominator, FW gap) — constant in the shard count.
 
-    Scaling efficiency on a real pod is therefore
-        eff(n) ~ t_gather(1) / (t_gather(1)/n + t_psum(n))
-    with t_psum riding ICI (~100 GB/s/link): 4m bytes ~ tens of us vs
-    gather times in ms — near-linear until n ~ t_gather/t_psum.
+    Scaling efficiency is therefore
+        eff(n) ~ t_gather(1) / (t_gather(1)/n + t_psum(n)).
+    Modeled with H100 SXM datasheet rates (not measured): each random
+    gather moves one 32-byte sector at 3.35 TB/s of HBM, and the psum
+    rides NVLink at 450 GB/s each way.
     """
     from bsls_tpu.models import synthetic
     from bsls_tpu.models.problem import EllMatrix
@@ -44,9 +45,9 @@ def analyze(config: str, blocks):
     m, n = prob.A.shape
     nnz = prob.A.nnz if isinstance(prob.A, EllMatrix) else m * n
     gather_rows = 2 * nnz  # A@x gathers x per nnz; A^T r gathers r per nnz
-    t_gather_1 = gather_rows * 6e-9
+    t_gather_1 = gather_rows * 32 / 3.35e12
     psum_bytes = 4 * m
-    t_psum = max(psum_bytes / 100e9, 2e-6)  # ICI bandwidth + latency floor
+    t_psum = max(psum_bytes / 450e9, 5e-6)  # NVLink bandwidth + latency floor
     rows = []
     for nb in blocks:
         t_n = t_gather_1 / nb + t_psum

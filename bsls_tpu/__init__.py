@@ -1,10 +1,10 @@
-"""bsls_tpu — TPU-native block-simplex-constrained least squares.
+"""bsls_tpu — block-simplex-constrained least squares on JAX accelerators.
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of the
 ``megacell/block-simplex-least-squares`` reference: projected gradient,
 accelerated PGD, projected L-BFGS, entropic mirror descent, and Frank-Wolfe
-(+pairwise) solvers over products of simplices, with fused per-block
-projection / PAVA kernels and multi-host mesh sharding.
+(+pairwise) solvers over products of simplices, with a fused per-block
+projection kernel for NVIDIA GPUs and multi-device mesh sharding.
 See SURVEY.md for the blueprint and provenance notes.
 """
 from .models import (

@@ -318,8 +318,8 @@ def oracle_solve_eq(
     # complementarity term (see docstring)
     gL = A_csr.T @ r + C_csr.T @ lam
     bound = fw_gap_np(gL, x, sizes) - float(lam @ (C_csr @ x - d))
-    # AL multipliers can certify sound-but-uselessly (measured bound 459 on
-    # the perturbed grid, BASELINE.md r4): refit lam on the active face
+    # AL multipliers can certify sound-but-uselessly (a bound in the
+    # hundreds on the perturbed grid): refit lam on the active face
     # (sparse LSMR, seconds at any scale) and keep the tighter sound bound
     from ..solvers.eq_constrained import eq_multiplier_polish
 

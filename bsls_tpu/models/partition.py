@@ -1,20 +1,20 @@
 """Block partition: bucketing, padding and flat<->padded index maps.
 
 The decision variable ``x`` is a concatenation of B simplex blocks of sizes
-``n_1..n_B`` (flat length N = sum n_i).  On TPU all per-block kernels
+``n_1..n_B`` (flat length N = sum n_i).  On the device all per-block kernels
 (projection, PAVA, EG renormalise, FW vertex) want a *rectangular* layout, so
 blocks are bucketed by padded width into a few ``(B_k, w_k)`` arrays:
 
   * every block is assigned to the smallest bucket width >= its size,
   * within a bucket, rows are real blocks (possibly followed by all-padding
     dummy rows so ``B_k`` is a multiple of ``block_multiple`` — used to make
-    the bucket shardable over the 'block' mesh axis and tileable by Pallas),
+    the bucket shardable over the 'block' mesh axis),
   * ``pad_to_flat[(bk, j)]`` maps each padded slot to its flat index in ``x``
     (0 for padding slots, which are masked out everywhere).
 
 The reference keeps a plain ``block_sizes`` int vector and loops in C
 (SURVEY.md §2 #2/#4, provenance [UNVERIFIED] — reference mount was empty);
-this module is the TPU-native replacement that makes every per-block op a
+this module is the device-side replacement that makes every per-block op a
 dense rectangular vmap/kernel.
 """
 from __future__ import annotations

@@ -54,7 +54,7 @@ class EllMatrix:
     Chosen over row-ELL because the framework shards A by columns aligned
     with the block sharding of x: A @ x is a per-column scale + segment-sum
     into the m rows (local, then psum over the block axis), and A^T r is a
-    pure gather — both TPU-friendly (SURVEY.md §7 hard part 2).
+    pure gather — no scatters (SURVEY.md §7 hard part 2).
 
     INVARIANT: no duplicate (row, col) coordinates.  Linear consumers
     (matvec/rmatvec) tolerate duplicates, but diag(A^T A) squares per-slot

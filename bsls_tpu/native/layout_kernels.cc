@@ -7,7 +7,7 @@
 // O(N log N) argsort + searchsorted + two fancy scatters; at the large
 // config's 48M nonzeros that is tens of seconds of prepare/ingestion
 // latency.  Here it is two O(N) passes (histogram, then fill with
-// per-group cursors) — the TPU-native analog of the reference's C
+// per-group cursors) — the analog of the reference's C
 // extensions, applied where THIS framework's native hot spot actually is:
 // host-side instance ingestion, not device compute (XLA/Pallas own that).
 //

@@ -2,8 +2,8 @@
 bandable instances.
 
 The uniform-random benchmark instances are an adversarial worst case for
-ANY layout on this stack — every nonzero forces one ~6 ns random-access
-row (the measured gather floor, BASELINE.md audit).  Real route-incidence
+ANY layout — every nonzero forces one random-access gathered row.  Real
+route-incidence
 matrices are different: routes traverse spatially local links, so after a
 bandwidth-reducing ordering (RCM on the bipartite adjacency; models/
 reorder.py) each column's nonzero rows fall in a narrow window that
@@ -58,7 +58,7 @@ class DeviceBanded:
     window of group g always starts at padded page g, which is what keeps
     every slice static.
 
-    Block sharding (VERDICT r2 #5): with ``n_shards > 1`` the band tensors
+    Block sharding: with ``n_shards > 1`` the band tensors
     shard along the GROUP axis (axis 0) over ``col_axis`` — in the
     value-grouped layout groups are contiguous block ranges, so a group
     shard is exactly a block shard, and shard d's matvec contribution is
@@ -108,20 +108,22 @@ def block_window_key(rows_pf: np.ndarray, vals_pf: np.ndarray) -> np.ndarray:
 
 def _choose_window(rows_pf, vals_pf, seg_lens, Mp, max_pages,
                    min_fit: float = 0.5,
-                   gather_ns: float = 6.0, stream_gbs: float = 819.0):
+                   gather_bytes: float = 4914.0):
     """Cost-model window choice.
 
     Band bytes scale linearly with the window width (the (Mp, C_b, W)
     tensors keep a slot for every column whether or not it fits), while a
-    spilled column only costs its nonzeros' gathered rows (~6 ns/row on
-    this stack, BASELINE.md audit).  So instead of a fixed percentile cut,
-    enumerate candidate (back, end) pairs from the per-column page-delta
-    quantiles and pick the one minimising the modeled per-iteration cost
+    spilled column only costs its nonzeros' gathered rows.  So instead of a
+    fixed percentile cut, enumerate candidate (back, end) pairs from the
+    per-column page-delta quantiles and pick the one minimising the modeled
+    per-iteration cost, in bytes of band streaming,
 
-        2 * band_bytes(wpages) / stream_BW  +  2 * nnz_spilled * 6 ns
+        2 * band_bytes(wpages)  +  2 * nnz_spilled * gather_bytes
 
-    (both the matvec and the rmatvec stream the band once and gather the
-    residual once).  Candidates whose nnz fit-fraction drops below
+    where ``gather_bytes`` prices one random gathered row as that many
+    streamed bytes (the ratio measured on the first build's device; due
+    for re-measurement on the current one).  Both the matvec and the
+    rmatvec stream the band once and gather the residual once.  Candidates whose nnz fit-fraction drops below
     ``min_fit`` are skipped so the layout stays recognisably banded; the
     2nd..98th percentile window is the fallback when nothing qualifies."""
     deltas_lo, deltas_hi, nnzs = [], [], []
@@ -166,8 +168,7 @@ def _choose_window(rows_pf, vals_pf, seg_lens, Mp, max_pages,
             nnz_spill = int(colnnz[spilled].sum())
             if 1.0 - nnz_spill / nnz_total < min_fit:
                 continue
-            cost = (2.0 * bytes_per_wpage * wp / (stream_gbs * 1e9)
-                    + 2.0 * nnz_spill * gather_ns * 1e-9)
+            cost = 2.0 * bytes_per_wpage * wp + 2.0 * nnz_spill * gather_bytes
             if best is None or cost < best[0]:
                 best = (cost, ba, wp)
     if best is None:
@@ -247,69 +248,19 @@ def _pad_to(x, n, axis=-1):
     return jnp.pad(x, cfg)
 
 
-# ---- contraction dispatch: Pallas page-streaming kernels on TPU ----
-#
-# XLA lowers the batched tiny GEMVs pathologically (per-batch loops; the
-# fused pgd step measured ~300x off the stream bound and compiled for
-# minutes), so on TPU the contractions go through ops/pallas/banded_kernels
-# with a custom-vmap rule that folds a mapped scenario axis into the
-# kernel's S dimension (one MXU dot per page) instead of serialising.
+# Page contractions.  Under a vmapped scenario axis, plain vmap turns each
+# into one batched dot_general over the pages (batch dim g, the scenario
+# axis a free dimension), which XLA hands to cuBLAS / its GEMM emitter.
 
 
-@jax.custom_batching.custom_vmap
 def _zmv(band, seg):  # band (Mp, C, W), seg (Mp, C) -> (Mp, W)
-    from .pallas import use_pallas
-    from .pallas.banded_kernels import band_zmv_pallas
-
-    if use_pallas():
-        return band_zmv_pallas(band, seg[None])[0]
     return jnp.einsum("gcw,gc->gw", band, seg, preferred_element_type=seg.dtype,
                       precision=jax.lax.Precision.HIGHEST)
 
 
-@_zmv.def_vmap
-def _zmv_vmap(axis_size, in_batched, band, seg):
-    assert not in_batched[0], "band is never batched"
-    from .pallas import use_pallas
-    from .pallas.banded_kernels import band_zmv_pallas
-
-    if not in_batched[1]:
-        seg = jnp.broadcast_to(seg, (axis_size,) + seg.shape)
-    if use_pallas():
-        return band_zmv_pallas(band, seg), True
-    return (
-        jnp.einsum("gcw,sgc->sgw", band, seg, preferred_element_type=seg.dtype,
-                   precision=jax.lax.Precision.HIGHEST),
-        True,
-    )
-
-
-@jax.custom_batching.custom_vmap
 def _grmv(band, rw):  # band (Mp, C, W), rw (Mp, W) -> (Mp, C)
-    from .pallas import use_pallas
-    from .pallas.banded_kernels import band_grmv_pallas
-
-    if use_pallas():
-        return band_grmv_pallas(band, rw[None])[0]
     return jnp.einsum("gcw,gw->gc", band, rw, preferred_element_type=rw.dtype,
                       precision=jax.lax.Precision.HIGHEST)
-
-
-@_grmv.def_vmap
-def _grmv_vmap(axis_size, in_batched, band, rw):
-    assert not in_batched[0], "band is never batched"
-    from .pallas import use_pallas
-    from .pallas.banded_kernels import band_grmv_pallas
-
-    if not in_batched[1]:
-        rw = jnp.broadcast_to(rw, (axis_size,) + rw.shape)
-    if use_pallas():
-        return band_grmv_pallas(band, rw), True
-    return (
-        jnp.einsum("gcw,sgw->sgc", band, rw, preferred_element_type=rw.dtype,
-                   precision=jax.lax.Precision.HIGHEST),
-        True,
-    )
 
 
 def _page_offset(A: DeviceBanded, gl: int):
@@ -338,8 +289,9 @@ def _matvec_core(A: DeviceBanded, bands, x_pf, page_off) -> jnp.ndarray:
         Z = z if Z is None else Z + z
         off += L
     # materialisation fence: without it XLA's reducer fusion can inline the
-    # whole band contraction into each downstream consumer (measured: the
-    # fused pgd step compiled for minutes and ran 300x slower)
+    # whole band contraction into each downstream consumer (on the first
+    # build's device the fused pgd step compiled for minutes and ran orders
+    # of magnitude slower; not re-measured on the current one)
     Z = jax.lax.optimization_barrier(Z)
     # overlap-add in front-padded page coords (group g starts at padded
     # page g) via wpages STATIC shifted adds (dense update, no scatter)

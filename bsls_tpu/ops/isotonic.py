@@ -1,6 +1,6 @@
 """Batched bounded isotonic regression (PAVA-equivalent) — XLA implementation.
 
-TPU-native replacement for the reference's C ``isotonic_regression_c`` /
+Vectorised replacement for the reference's C ``isotonic_regression_c`` /
 ``isotonic_regression_multi_c`` (SURVEY.md §2 #3-4).  PAVA is inherently
 sequential per block, but blocks are small (w <= ~128), so this uses the
 exact *minimax characterisation* of L2 isotonic regression instead:
@@ -8,13 +8,12 @@ exact *minimax characterisation* of L2 isotonic regression instead:
     yhat_i = min_{k >= i} max_{j <= i} mean(y[j..k])
 
 which vectorises as an O(w^2) dense computation per block — a far better
-fit for the VPU than a length-w dependency chain, and exactly equal to the
+fit for wide vector hardware than a length-w dependency chain, and exactly equal to the
 PAVA output.  Uniform box bounds commute with the monotone-cone projection,
 so [lo, hi] is applied as a final clip.
 
 Cost is O(B * w^2) and the means tensor is (chunk, w, w); ``chunk`` bounds
-peak memory for very large B.  The fused Pallas kernel
-(ops/pallas/pava_kernel.py) computes the same formula tile-by-tile in VMEM.
+peak memory for very large B.
 """
 from __future__ import annotations
 
@@ -96,15 +95,7 @@ def pava_padded(
 
 def pava_bounded(y: jnp.ndarray, widths: jnp.ndarray, radius) -> jnp.ndarray:
     """[0, radius]-bounded nondecreasing fit of each row's first ``widths``
-    slots; fused Pallas kernel on TPU, XLA minimax elsewhere."""
-    from .pallas import pava_pallas_b, use_pallas_pava
-
-    if use_pallas_pava() and y.shape[-2] * y.shape[-1] <= 2_000_000:
-        # _b: custom-vmap entry that folds a scenario axis into the grid;
-        # size gate mirrors ops.projection._PALLAS_PROJ_MAX_SLOTS
-        return pava_pallas_b(
-            y, widths, jnp.broadcast_to(jnp.asarray(radius, y.dtype), widths.shape)
-        )
+    slots (XLA minimax form; leading batch axes broadcast)."""
     mask = (jnp.arange(y.shape[-1]) < widths[:, None]).astype(y.dtype)
     return pava_padded(y, mask, 0.0, radius)
 

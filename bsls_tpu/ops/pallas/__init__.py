@@ -1,130 +1,15 @@
-"""Pallas TPU kernels + dispatch.
+"""Pallas kernels for NVIDIA GPUs (Triton route).
 
-Two gates (the XLA implementations in ops.projection / ops.isotonic remain
-the cross-check and CPU path — SURVEY.md §7 step 4: keep both, benchmark,
-pick the winner):
-
-* ``use_pallas()`` — the PROJECTION dispatch.  Default ON on real TPU
-  backends since round 2: the lane-major kernel + scenario folding
-  measured 12,957 agg it/s at medium x128 vs 6,867 for XLA (BASELINE.md).
-  Set BSLS_NO_PALLAS=1 to force the XLA path.
-* ``use_pallas_pava()`` — the PAVA dispatch, also default ON since the
-  lane-major variant (pava_pallas_t) validated bit-correct on-chip
-  (maxdiff 9.5e-7 at (400k, 8)) and beat the XLA path 1.40 vs 1.54 ms.
-
-History: sort-network/tri-matmul/cumsum formulations that pass
-interpret-mode tests mis-lower via this image's Mosaic — keep kernels to
-elementwise ops, masked lane/sublane reductions, and fori_loop(unroll=1).
+The XLA implementations in ops.projection remain the CPU path and the
+cross-check; ops.projection.proj_blocks picks the kernel when it lowers
+for CUDA.
 """
-from __future__ import annotations
-
-import os
-from functools import lru_cache
-
-__all__ = ["use_pallas", "use_pallas_pava", "proj_simplex_pallas", "pava_pallas"]
-
-
-def _on_tpu() -> bool:
-    try:
-        import jax
-
-        return jax.devices()[0].platform == "tpu"
-    except Exception:
-        return False
-
-
-@lru_cache(maxsize=1)
-def use_pallas() -> bool:
-    if os.environ.get("BSLS_NO_PALLAS", "") == "1":
-        return False
-    return _on_tpu()
-
-
-@lru_cache(maxsize=1)
-def use_pallas_pava() -> bool:
-    if os.environ.get("BSLS_NO_PALLAS", "") == "1":
-        return False
-    return _on_tpu()
-
-
-from .pava_kernel import pava_pallas  # noqa: E402
-from .projection_kernel import proj_simplex_pallas  # noqa: E402
-
-
-def _fold_scenarios(impl):
-    """Give a ``(v (B, w), widths (B,), radius (B,)) -> (B, w)`` kernel entry
-    a custom-vmap rule that FOLDS a mapped scenario axis into the block/grid
-    axis — one pallas_call over (S*B, w) rows — instead of letting vmap
-    serialise the pallas grid over scenarios (which cost 3.6x at S=128 in
-    round 1; ROADMAP #4).  Per-(scenario, block) independence makes the fold
-    exact.  Nested vmaps fold recursively."""
-    import jax
-    import jax.numpy as jnp
-
-    fn = jax.custom_batching.custom_vmap(impl)
-
-    @fn.def_vmap
-    def _rule(axis_size, in_batched, v, widths, radius):
-        S = axis_size
-
-        def lead(x, batched):
-            return x if batched else jnp.broadcast_to(x, (S,) + x.shape)
-
-        v = lead(v, in_batched[0])
-        widths = lead(widths, in_batched[1])
-        radius = lead(radius, in_batched[2])
-        B, w = v.shape[-2], v.shape[-1]
-        out = fn(v.reshape(S * B, w), widths.reshape(S * B), radius.reshape(S * B))
-        return out.reshape(S, B, w), True
-
-    return fn
-
-
-# production entries: scenario-folding batched forms over the WIDE-layout
-# lane-major kernels — blocks on VPU lanes (5.9x XLA at the folded S=128
-# scale), with the (w, N) transpose taken BEFORE any flattening so no
-# narrow (N, w) tensor ever materialises at the pallas boundary (a narrow
-# operand forces a 128/w-padded tiled copy and poisons the surrounding
-# program's layouts — it OOM'd the 1M-block config by 8+ GB).
-from .pava_kernel import pava_pallas_t, pava_pallas_tw  # noqa: E402
-from .projection_kernel import (  # noqa: E402
-    proj_simplex_pallas_t,
-    proj_simplex_pallas_tw,
+from .projection_kernel import (
+    MAX_KERNEL_WIDTH,
+    proj_simplex_kernel,
+    proj_simplex_rows,
+    tile_shape,
 )
 
-
-def _fold_scenarios_wide(core):
-    """custom-vmap wrapper for a wide-layout kernel core
-    ``(vT (w, N), widths (1, N), radius (1, N)) -> (w, N)`` exposing the
-    solver-facing ``(B, w), (B,), (B,)`` signature; a mapped scenario axis
-    folds into N = S*B with one transpose (no narrow intermediate)."""
-    import jax
-    import jax.numpy as jnp
-
-    @jax.custom_batching.custom_vmap
-    def entry(v, widths, radius):
-        return core(v.T, widths.reshape(1, -1), radius.reshape(1, -1)).T
-
-    @entry.def_vmap
-    def _rule(axis_size, in_batched, v, widths, radius):
-        S = axis_size
-
-        def lead(x, batched):
-            return x if batched else jnp.broadcast_to(x, (S,) + x.shape)
-
-        v = lead(v, in_batched[0])
-        widths = lead(widths, in_batched[1])
-        radius = lead(radius, in_batched[2])
-        B, w = v.shape[-2], v.shape[-1]
-        vT = jnp.transpose(v, (2, 0, 1)).reshape(w, S * B)
-        out = core(vT, widths.reshape(1, S * B), radius.reshape(1, S * B))
-        return out.reshape(w, S, B).transpose(1, 2, 0), True
-
-    return entry
-
-
-proj_simplex_pallas_b = _fold_scenarios_wide(
-    lambda vT, w, r: proj_simplex_pallas_tw(vT, w, r)
-)
-pava_pallas_b = _fold_scenarios_wide(lambda yT, w, r: pava_pallas_tw(yT, w, r))
-__all__ += ["proj_simplex_pallas_b", "pava_pallas_b", "proj_simplex_pallas_t"]
+__all__ = ["MAX_KERNEL_WIDTH", "proj_simplex_kernel", "proj_simplex_rows",
+           "tile_shape"]

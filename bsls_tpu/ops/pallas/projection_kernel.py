@@ -1,20 +1,29 @@
-"""Fused Pallas TPU kernel: batched block-simplex projection.
+"""Fused block-simplex projection for NVIDIA GPUs (Pallas, Triton route).
 
-TPU-native equivalent of the reference's C ``proj_multi_simplex_c``
-(SURVEY.md §2c native ledger).  Instead of the reference's sort-based
-pivot search — sorting networks mis-lower on this image's Mosaic when the
-logical lane width < 128 (pltpu.roll wraps across physical lane padding) —
-the kernel solves for the threshold tau directly by **bisection** on the
-monotone function s(t) = sum_i max(v_i - t, 0):
+The XLA path (ops.projection.proj_simplex_padded) sorts each row, takes a
+cumsum, finds the pivot and writes the output as separate passes over the
+(..., B, w) slot array.  This kernel reads each row once and writes it once:
+one program owns a tile of ``TB`` rows of the row-major (N, w) array, with
+the width padded to the next power of two ``W`` inside the kernel and the
+padding masked.
 
-    s is continuous, strictly decreasing where positive; tau* solves
-    s(tau*) = radius.  40 halvings shrink the bracket below fp32 eps.
+Threshold without a sort: for the radius-r simplex the projection is
+max(v - tau, 0) with
 
-Everything is elementwise + masked lane reductions on a (TB, w) tile in
-VMEM — one HBM round trip, no sort, no gather, no roll.  The sort-based
-XLA implementation (ops.projection) remains the cross-check; both match
-the arXiv:1101.6081 algorithm's output to fp32 precision.
-`interpret=True` runs the same kernel on CPU for tests.
+    tau = max_i (S_i - r) / c_i,   c_i = #{j : v_j >= v_i},
+                                   S_i = sum{v_j : v_j >= v_i}
+
+over the row's valid slots (arXiv:1101.6081: (css_k - r)/k rises while k is
+in the support and falls after it, so its maximum over the sorted prefixes
+is the threshold; evaluating it at every slot visits every prefix, ties
+included).  That is O(W^2) compares per row on a (TB, W, W) register tile
+and is exact, no iteration.  It beats the sort path on an H100 up to
+W = 16, the widest padded width measured (PERF.md); wider buckets take the
+sort path (``MAX_KERNEL_WIDTH``).
+
+A vmapped scenario axis folds into rows by a reshape ((S, B, w) ->
+(S*B, w)); the per-block widths and radii stay (B,) and row n reads block
+n % B.  ``interpret=True`` runs the same kernel on the CPU for tests.
 """
 from __future__ import annotations
 
@@ -23,177 +32,100 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-__all__ = ["proj_simplex_pallas", "proj_simplex_pallas_t"]
+__all__ = ["MAX_KERNEL_WIDTH", "proj_simplex_kernel", "proj_simplex_rows",
+           "tile_shape"]
 
-_BIG = 3.0e38
-_N_BISECT = 40
-
-
-def _proj_tile_kernel(v_ref, width_ref, radius_ref, out_ref, *, w: int):
-    v = v_ref[...]  # (TB, w)
-    width = width_ref[...]  # (TB, 1) int32
-    radius = radius_ref[...]  # (TB, 1) f32
-    TB = v.shape[0]
-    lane = jax.lax.broadcasted_iota(jnp.int32, (TB, w), 1)
-    valid = lane < width
-    vm_lo = jnp.where(valid, v, _BIG)
-    vm_hi = jnp.where(valid, v, -_BIG)
-    vmin = jnp.min(vm_lo, axis=1, keepdims=True)  # (TB, 1)
-    vmax = jnp.max(vm_hi, axis=1, keepdims=True)
-
-    # bracket: s(vmin - radius) >= radius, s(vmax) = 0 <= radius
-    lo0 = vmin - radius
-    hi0 = vmax
-
-    def body(_, carry):
-        lo, hi = carry
-        mid = 0.5 * (lo + hi)
-        s = jnp.sum(jnp.where(valid, jnp.maximum(v - mid, 0.0), 0.0), axis=1, keepdims=True)
-        too_low = s > radius  # threshold too small -> move lo up
-        lo = jnp.where(too_low, mid, lo)
-        hi = jnp.where(too_low, hi, mid)
-        return lo, hi
-
-    lo, hi = jax.lax.fori_loop(0, _N_BISECT, body, (lo0, hi0), unroll=1)
-    tau = 0.5 * (lo + hi)
-    out = jnp.maximum(v - tau, 0.0)
-    # Newton polish: once the support set is pinned down (bracket below the
-    # inter-value gap), the exact threshold is tau + (s(tau)-radius)/|support|
-    ssum = jnp.sum(jnp.where(valid, out, 0.0), axis=1, keepdims=True)
-    nsup = jnp.sum(jnp.where(valid & (out > 0), 1.0, 0.0), axis=1, keepdims=True)
-    tau = tau + (ssum - radius) / jnp.maximum(nsup, 1.0)
-    out = jnp.maximum(v - tau, 0.0)
-    out_ref[...] = jnp.where(valid, out, 0.0)
+# widest block the kernel takes; wider buckets use the XLA sort path
+MAX_KERNEL_WIDTH = 16
+# register tile per program: TB*W*W elements, sized by a tile/warp sweep on
+# an H100 (PERF.md)
+_TILE = 4096
+_MAX_ROWS = 256
+_NUM_WARPS = 4
 
 
-def _proj_tile_kernel_t(v_ref, width_ref, radius_ref, out_ref, *, w: int):
-    """Transposed tile: (w, TN) — blocks on LANES (full VPU width), block
-    width w on sublanes.  Same bisection+Newton-polish algorithm as the
-    row-major kernel; reductions run over the sublane axis."""
-    v = v_ref[...]  # (w, TN)
-    width = width_ref[...]  # (1, TN) int32
-    radius = radius_ref[...]  # (1, TN) f32
-    TN = v.shape[1]
-    sub = jax.lax.broadcasted_iota(jnp.int32, (w, TN), 0)
-    valid = sub < width
-    vm_lo = jnp.where(valid, v, _BIG)
-    vm_hi = jnp.where(valid, v, -_BIG)
-    vmin = jnp.min(vm_lo, axis=0, keepdims=True)  # (1, TN)
-    vmax = jnp.max(vm_hi, axis=0, keepdims=True)
-
-    lo0 = vmin - radius
-    hi0 = vmax
-
-    def body(_, carry):
-        lo, hi = carry
-        mid = 0.5 * (lo + hi)
-        s = jnp.sum(jnp.where(valid, jnp.maximum(v - mid, 0.0), 0.0), axis=0,
-                    keepdims=True)
-        too_low = s > radius
-        lo = jnp.where(too_low, mid, lo)
-        hi = jnp.where(too_low, hi, mid)
-        return lo, hi
-
-    lo, hi = jax.lax.fori_loop(0, _N_BISECT, body, (lo0, hi0), unroll=1)
-    tau = 0.5 * (lo + hi)
-    out = jnp.maximum(v - tau, 0.0)
-    ssum = jnp.sum(jnp.where(valid, out, 0.0), axis=0, keepdims=True)
-    nsup = jnp.sum(jnp.where(valid & (out > 0), 1.0, 0.0), axis=0, keepdims=True)
-    tau = tau + (ssum - radius) / jnp.maximum(nsup, 1.0)
-    out = jnp.maximum(v - tau, 0.0)
-    out_ref[...] = jnp.where(valid, out, 0.0)
+def tile_shape(w: int) -> tuple[int, int]:
+    """(W, TB): the power-of-two padded width and the rows per program."""
+    W = pl.next_power_of_2(max(int(w), 1))
+    return W, max(1, min(_MAX_ROWS, _TILE // (W * W)))
 
 
-@functools.partial(jax.jit, static_argnames=("tile", "interpret"))
-def proj_simplex_pallas_tw(
-    vT: jnp.ndarray,
-    widths_row: jnp.ndarray,
-    radius_row: jnp.ndarray,
-    tile: int = 2048,
-    interpret: bool = False,
-) -> jnp.ndarray:
-    """Wide-layout lane-major projection: vT (w, N), widths/radius (1, N)
-    -> (w, N).  The wide layout is load-bearing, not cosmetic: a narrow
-    (N, w) pallas operand forces an (8,128)-tiled copy padded 128/w-fold
-    — which both wastes memory directly AND propagates tiled layouts into
-    the surrounding solver program (measured: the 1M-block config OOM'd
-    by 8+ GB of 16-21x padded copies).  (w, N) is exactly one sublane
-    group per slot index: zero padding."""
-    w, N = vT.shape
-    tile = min(tile, max(128, N))
-    pad = (-N) % tile
-    if pad:
-        vT = jnp.pad(vT, ((0, 0), (0, pad)))
-        widths_row = jnp.pad(widths_row, ((0, 0), (0, pad)))
-        radius_row = jnp.pad(radius_row, ((0, 0), (0, pad)))
-    Np = N + pad
-    out = pl.pallas_call(
-        functools.partial(_proj_tile_kernel_t, w=w),
-        out_shape=jax.ShapeDtypeStruct((w, Np), vT.dtype),
-        grid=(Np // tile,),
-        in_specs=[
-            pl.BlockSpec((w, tile), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, tile), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, tile), lambda i: (0, i), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((w, tile), lambda i: (0, i), memory_space=pltpu.VMEM),
-        interpret=interpret,
-    )(vT, widths_row.astype(jnp.int32), radius_row.astype(vT.dtype))
-    return out[:, :N]
+def _kernel(v_ref, width_ref, radius_ref, out_ref, *, W: int, TB: int):
+    n_rows, w = v_ref.shape
+    n_blk = width_ref.shape[0]
+    rows = pl.program_id(0) * TB + jnp.arange(TB)
+    cols = jnp.arange(W)
+    row_ok = rows < n_rows
+    blk = rows % n_blk
+    width = plgpu.load(width_ref.at[blk], mask=row_ok, other=0)
+    radius = plgpu.load(radius_ref.at[blk], mask=row_ok, other=1.0)
+    in_bounds = row_ok[:, None] & (cols[None, :] < w)
+    v = plgpu.load(v_ref.at[rows[:, None], cols[None, :]], mask=in_bounds,
+                   other=0.0)
+    valid = in_bounds & (cols[None, :] < width[:, None])
+    big = float(jnp.finfo(v.dtype).max)
+    vj = jnp.where(valid, v, -big)[:, None, :]  # (TB, 1, W)
+    ge = vj >= v[:, :, None]  # ge[t, i, j]: v_j >= v_i over valid j
+    cnt = jnp.sum(jnp.where(ge, 1.0, 0.0).astype(v.dtype), axis=2)
+    ssum = jnp.sum(jnp.where(ge, vj, 0.0), axis=2)
+    cand = jnp.where(valid, (ssum - radius[:, None]) / jnp.maximum(cnt, 1.0),
+                     -big)
+    tau = jnp.max(cand, axis=1, keepdims=True)
+    out = jnp.where(valid, jnp.maximum(v - tau, 0.0), 0.0)
+    plgpu.store(out_ref.at[rows[:, None], cols[None, :]], out.astype(out_ref.dtype),
+                mask=in_bounds)
 
 
-@functools.partial(jax.jit, static_argnames=("tile", "interpret"))
-def proj_simplex_pallas_t(
-    v: jnp.ndarray,
-    widths: jnp.ndarray,
-    radius: jnp.ndarray,
-    tile: int = 2048,
-    interpret: bool = False,
-) -> jnp.ndarray:
-    """Lane-major batched projection: rows of v (B, w) projected onto their
-    radius-scaled simplices, with the BLOCK axis mapped to VPU lanes (the
-    row-major kernel wastes (128-w)/128 of each vector op for the small
-    block widths this problem has)."""
-    B, w = v.shape
-    out = proj_simplex_pallas_tw(
-        v.T, widths.reshape(1, -1), radius.reshape(1, -1), tile=tile,
-        interpret=interpret,
-    )
-    return out.T
+@functools.partial(jax.jit, static_argnames=("interpret",))
+def proj_simplex_rows(v, widths, radius, interpret: bool = False):
+    """Project every row of ``v`` (..., B, w) onto the radius-scaled simplex
+    of its block's first ``widths`` slots; leading axes fold into rows.
 
-
-@functools.partial(jax.jit, static_argnames=("tile", "interpret"))
-def proj_simplex_pallas(
-    v: jnp.ndarray,
-    widths: jnp.ndarray,
-    radius: jnp.ndarray,
-    tile: int = 256,
-    interpret: bool = False,
-) -> jnp.ndarray:
-    """Project rows of v (B, w) onto radius-scaled simplices of their first
-    ``widths`` slots.  widths: (B,) int32; radius: (B,) float.
+    widths, radius: (B,) per block.  Padding slots and width-0 rows give 0.
     """
-    B, w = v.shape
-    tile = min(tile, max(8, B))
-    pad = (-B) % tile
-    if pad:
-        v = jnp.pad(v, ((0, pad), (0, 0)))
-        widths = jnp.pad(widths, (0, pad))
-        radius = jnp.pad(radius, (0, pad))
-    Bp = B + pad
-    grid = (Bp // tile,)
+    w = v.shape[-1]
+    if w > MAX_KERNEL_WIDTH:
+        raise ValueError(f"block width {w} > MAX_KERNEL_WIDTH={MAX_KERNEL_WIDTH}")
+    W, TB = tile_shape(w)
+    v2 = v.reshape(-1, w)
     out = pl.pallas_call(
-        functools.partial(_proj_tile_kernel, w=w),
-        out_shape=jax.ShapeDtypeStruct((Bp, w), v.dtype),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((tile, w), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile, 1), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile, 1), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((tile, w), lambda i: (i, 0), memory_space=pltpu.VMEM),
+        functools.partial(_kernel, W=W, TB=TB),
+        # vma: inside shard_map the output varies over the same mesh axes
+        out_shape=jax.ShapeDtypeStruct(v2.shape, v.dtype,
+                                       vma=jax.typeof(v2).vma),
+        grid=(pl.cdiv(v2.shape[0], TB),),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=_NUM_WARPS, num_stages=1),
         interpret=interpret,
-    )(v, widths.reshape(-1, 1).astype(jnp.int32), radius.reshape(-1, 1).astype(v.dtype))
-    return out[:B]
+        name="proj_simplex",
+    )(v2, widths.astype(jnp.int32), jnp.broadcast_to(
+        jnp.asarray(radius, v.dtype), widths.shape))
+    return out.reshape(v.shape)
+
+
+@jax.custom_batching.custom_vmap
+def proj_simplex_kernel(v, widths, radius):
+    """Solver-facing entry: ``v`` (B, w), ``widths``/``radius`` (B,).  A
+    vmapped scenario axis folds into the kernel's rows (one launch over
+    S*B rows), not a serial loop over scenarios."""
+    return proj_simplex_rows(v, widths, radius)
+
+
+@proj_simplex_kernel.def_vmap
+def _fold(axis_size, in_batched, v, widths, radius):
+    if in_batched[1] or in_batched[2]:
+        # per-scenario block parameters: every row carries its own block
+        def lead(x, batched):
+            return x if batched else jnp.broadcast_to(x, (axis_size,) + x.shape)
+
+        v = lead(v, in_batched[0])
+        widths = lead(widths, in_batched[1]).reshape(-1)
+        radius = lead(radius, in_batched[2]).reshape(-1)
+        return proj_simplex_kernel(v.reshape(widths.shape[0], v.shape[-1]),
+                                   widths, radius).reshape(v.shape), True
+    if not in_batched[0]:
+        v = jnp.broadcast_to(v, (axis_size,) + v.shape)
+    out = proj_simplex_kernel(v.reshape(-1, v.shape[-1]), widths, radius)
+    return out.reshape(v.shape), True

@@ -4,17 +4,19 @@ Sort-based algorithm (arXiv:1101.6081, PAPERS.md): per block, sort
 descending, find the pivot rho = max{k : u_k - (cumsum_k - 1)/k > 0},
 threshold tau = (cumsum_rho - 1)/rho, return max(v - tau, 0).
 
-This is the TPU-native equivalent of the reference's C ``proj_simplex_c`` /
+This is the vectorised equivalent of the reference's C ``proj_simplex_c`` /
 ``proj_multi_simplex_c`` (SURVEY.md §2 #1-2).  Operates on a padded
 ``(..., B, w)`` layout with a ``(B, w)`` validity mask; padding slots and
-all-padding dummy rows produce zeros.  The fused Pallas variant lives in
-``bsls_tpu.ops.pallas.projection_kernel``; this XLA version is the
-always-available cross-check and the small-width fast path.
+all-padding dummy rows produce zeros.  The fused GPU kernel lives in
+``bsls_tpu.ops.pallas.projection_kernel``; this XLA version is the CPU path,
+the path for blocks wider than the kernel takes, and the cross-check.
 """
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+
+from .pallas.projection_kernel import MAX_KERNEL_WIDTH, proj_simplex_kernel
 
 __all__ = ["proj_simplex_padded", "proj_blocks"]
 
@@ -49,27 +51,19 @@ def proj_simplex_padded(v: jnp.ndarray, mask: jnp.ndarray, radius=1.0) -> jnp.nd
     return jnp.where(mask > 0, out, 0.0)
 
 
-# Above this many padded slots the Pallas dispatch is skipped: XLA's layout
-# assignment around a pallas custom-call materialises (8,128)-tiled copies
-# of the operands (and propagates tiled layouts to neighbouring tensors)
-# padded 128/w-fold — harmless at the benchmark scales (<= a few hundred MB)
-# but an 8+ GB OOM on the 1M-block config, whose step is gather-bound and
-# gains nothing from a fused projection anyway.
-_PALLAS_PROJ_MAX_SLOTS = 2_000_000
+def _proj_bucket(x, bk):
+    if x.shape[-1] > MAX_KERNEL_WIDTH:
+        return proj_simplex_padded(x, bk.mask, bk.radius)
+    # the fused kernel when lowering for CUDA, the sort path elsewhere (the
+    # branch not taken is traced but never lowered)
+    return jax.lax.platform_dependent(
+        x, bk.sizes, bk.radius, bk.mask,
+        cuda=lambda v, s, r, m: proj_simplex_kernel(v, s, r),
+        default=lambda v, s, r, m: proj_simplex_padded(v, m, r),
+    )
 
 
 def proj_blocks(xp, buckets):
     """Apply the projection to every bucket of a padded pytree (per-bucket
-    radii from equilibration).  Dispatches to the fused Pallas kernel on
-    TPU, the XLA implementation elsewhere."""
-    from .pallas import proj_simplex_pallas_b, use_pallas
-
-    total_slots = sum(int(x.shape[-2]) * int(x.shape[-1]) for x in xp)
-    if use_pallas() and total_slots <= _PALLAS_PROJ_MAX_SLOTS:
-        # _b: custom-vmap entry that folds a scenario axis into the grid
-        return tuple(
-            proj_simplex_pallas_b(x, bk.sizes, bk.radius) for x, bk in zip(xp, buckets)
-        )
-    return tuple(
-        proj_simplex_padded(x, bk.mask, bk.radius) for x, bk in zip(xp, buckets)
-    )
+    radii from equilibration)."""
+    return tuple(_proj_bucket(x, bk) for x, bk in zip(xp, buckets))

@@ -2,7 +2,7 @@
 
 The objective 0.5||Ax-b||^2 admits a closed-form exact step along any
 direction d:  t* = -(g.d)/||A d||^2, clipped to the feasible segment — the
-TPU-native equivalent of the reference's C line-search helpers (SURVEY.md
+vectorised equivalent of the reference's C line-search helpers (SURVEY.md
 §2 #5-7).  Under the sharded step these inner products become psum
 reductions (parallel/sharding.py).
 """

@@ -1,6 +1,6 @@
 """Per-block simplex ops: entropic-mirror (EG) update and Frank-Wolfe vertex.
 
-TPU-native equivalents of the reference's mirror-descent renormalisation and
+Vectorised equivalents of the reference's mirror-descent renormalisation and
 FW linear-minimisation oracle (SURVEY.md §2 #10-11).  All run on the padded
 (B, w) layout with masks; EG runs in the log domain for underflow safety
 (SURVEY.md §7 hard part 5).

@@ -1,4 +1,4 @@
-"""Mesh construction: ('row', 'block', 'scenario') axes over a TPU slice.
+"""Mesh construction: ('row', 'block', 'scenario') axes over the devices.
 
 The 'block' axis shards the block dimension (x, projections, A columns);
 the 'scenario' axis shards the multi-RHS batch (BASELINE.json:10); the

@@ -302,8 +302,8 @@ def shard_problem_rows(problem: Problem, mesh, dtype=jnp.float32):
             "For bandable (corridor) instances use block sharding with "
             "layout='banded' — it IS row sharding there: band groups own "
             "advancing row windows, so an 8-way group shard already touches "
-            "only 12.9% of the row pages (12.5% ideal, 3.3% wpages halo — "
-            "measured on medium_banded, BASELINE.md round 4); a separate "
+            "little more than 1/8 of the row pages (plus a wpages halo); a "
+            "separate "
             "row axis would re-shard the same diagonal and cannot shrink "
             "per-shard band bytes further."
         )
@@ -354,8 +354,8 @@ def shard_problem_2d(problem: Problem, mesh, dtype=jnp.float32):
         raise NotImplementedError(
             f"2-D sharding supports dense/ELL A, got {type(A)}. For "
             "bandable instances block-sharded layout='banded' already "
-            "row-shards (group windows advance with the rows; 3.3% halo "
-            "measured — BASELINE.md round 4), so a row axis adds nothing."
+            "row-shards (group windows advance with the rows, plus a small "
+            "halo), so a row axis adds nothing."
         )
     if pad:
         b = np.concatenate([b, np.zeros((b.shape[0], pad), b.dtype)], axis=1)
@@ -635,8 +635,8 @@ def solve_sharded(
     # async chunk loop with adaptive sync cadence — same design as
     # solvers/base.py solve(): chunks enqueue without blocking, traces stay
     # on device until the end, and convergence stats come back in one packed
-    # transfer every `sync_every` chunks (a host readback roundtrip costs
-    # ~25 ms on this stack and used to dominate small per-chunk walls).
+    # transfer every `sync_every` chunks (host readbacks stall the device
+    # and can dominate small per-chunk walls).
     from ..solvers.base import MAX_SYNC_CHUNKS, SYNC_TARGET_SECS
 
     from ..solvers.base import MAX_SYNC_CHUNKS_TOL

@@ -43,9 +43,8 @@ class Endpoint:
         warm_start: bool = True,
         mesh=None,
     ):
-        # cold-start is almost entirely XLA compile time (measured ~79 s
-        # for the eq lbfgs path); the persistent cache replays it across
-        # process restarts (BSLS_NO_COMPILE_CACHE=1 opts out)
+        # cold-start is almost entirely XLA compile time; the persistent
+        # cache replays it across process restarts
         from .utils.compile_cache import enable_compile_cache
 
         enable_compile_cache()
@@ -180,8 +179,8 @@ class Endpoint:
                 # warm-start lam and x but NOT the grown rho: with lam near
                 # the optimal multipliers a small penalty already satisfies
                 # the constraints, while a large rho ill-conditions the
-                # stacked operator and slows every inner solve (measured:
-                # warm rho made requests ~25% slower than cold)
+                # stacked operator and slows every inner solve (warm rho
+                # made requests slower than cold)
                 kw.setdefault("lam0", warm["lam"])
                 kw.setdefault("x0", warm["x"])
             elif x0 is not None:
@@ -295,8 +294,9 @@ def _slice_result(res: SolveResult, i: int) -> SolveResult:
 
 class BatchQueue:
     """Micro-batching front for an Endpoint: concurrent requests coalesce
-    onto the multi-RHS scenario axis — the throughput axis of this hardware
-    (batched gathers amortise ~70x/RHS, BASELINE.md) — and batch widths are
+    onto the multi-RHS scenario axis — the throughput axis of the sparse
+    path (batched gathers amortise the random access over the batch) — and
+    batch widths are
     rounded up to powers of two so the jit cache stays small and warm.
 
         q = BatchQueue(Endpoint(problem), max_batch=32, max_wait_ms=20)

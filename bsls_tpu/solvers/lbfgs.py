@@ -2,7 +2,7 @@
 
 The quasi-Newton family the reference codebase pairs with its z-space
 reparametrisation (SURVEY.md §1a solver table: "L-BFGS-in-z-space"
-[UNVERIFIED — reference mount empty]; the TPU build implements both the
+[UNVERIFIED — reference mount empty]; this build implements both the
 x-space and z-space variants).  Scheme per iteration:
 
   1. the limited-memory inverse-Hessian product q = H g is evaluated in
@@ -25,7 +25,7 @@ x-space and z-space variants).  Scheme per iteration:
   3. exact quadratic line search along d (closed form, collective-aware
      inner products) — monotone descent by construction.
 
-TPU-first shape choices: the pair history lives in two static (M, n_pf)
+Accelerator-first shape choices: the pair history lives in two static (M, n_pf)
 SHIFT buffers (newest pair at index M-1, advanced with a static
 slice+concat each iteration) plus MxM Gram buffers S^T Y and Y^T Y
 maintained incrementally, so the whole step stays a fixed-shape XLA
@@ -95,7 +95,8 @@ def compact_hg(dp, g_flat, st: LBFGSState):
     D = jnp.where(valid, jnp.diagonal(st.sty), 0.0)
     YtY = jnp.where(pair_mask, st.yty, 0.0)
     w1 = jax.scipy.linalg.solve_triangular(R, u, lower=False)  # R^{-1} u
-    t = D * w1 + st.gamma * (YtY @ w1) - st.gamma * v
+    t = D * w1 + st.gamma * jnp.matmul(
+        YtY, w1, precision=jax.lax.Precision.HIGHEST) - st.gamma * v
     p = jax.scipy.linalg.solve_triangular(R.T, t, lower=True)  # R^{-T} t
     hp = jnp.einsum("mn,m->n", st.s_hist, p,
                     precision=jax.lax.Precision.HIGHEST)

@@ -9,7 +9,7 @@ projection kernel at all (SURVEY.md §2 #10).  Modes:
                     of 1/L, with the same exact-segment safeguard.
   fixed           — classic EG with constant step (opts.step_size or 1/L)
 
-MEASURED NEGATIVE RESULT (round 4, VERDICT r3 weak #6 — recorded so it is
+MEASURED NEGATIVE RESULT (recorded so it is
 not re-litigated): no step policy makes EG competitive with pgd/bb on the
 medium-class quadratic.  On medium_sparse (f64 prototypes + on-device
 runs, iterations to 1e-3 relative gap; pgd/bb needs ~100):

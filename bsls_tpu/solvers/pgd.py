@@ -12,8 +12,7 @@ Line-search modes (SURVEY.md §2 #6-9):
            same direction (guaranteed descent: d is a projection-arc
            direction, g.d < 0) replaces the unit step.  Same 2
            matvecs/iter as bb, monotone like exact, converges at the BB
-           rate in practice — the honest fast time-to-1e-6 solver
-           (VERDICT.md next #6).
+           rate in practice — the honest fast time-to-1e-6 solver.
   fixed  — constant step (opts.step_size or 1/L)
 """
 from __future__ import annotations
@@ -81,7 +80,7 @@ def step(dp, st: PGDState, L_est, opts: SolveOptions) -> PGDState:
     # when the trial point is built in z-space, the whole trial-step logic
     # (1/L, BB differences) must live in z-space too: the cumulative-sum map
     # D inflates curvature to ||A D||^2 = O(w^2)||A||^2, so x-space steps are
-    # orders too long there (VERDICT r2 weak #4).  solve() passes the
+    # orders too long there.  solve() passes the
     # matching power_lipschitz_z estimate as L_est for these modes.
     if zspace:
         zp = tuple(Z.x_to_z_padded(x, bk.mask) for x, bk in zip(st.xp, dp.buckets))

@@ -56,11 +56,11 @@ PRESETS = {
     "medium-eg": RunConfig(config="medium", method="eg"),
     "medium-lbfgs": RunConfig(config="medium", method="lbfgs"),
     # corridor-structured instance: prepare(layout="auto") picks the
-    # banded-split layout (2.56x the C baseline single-RHS, BASELINE.md)
+    # banded-split layout
     "medium-banded": RunConfig(config="medium_banded", method="pgd",
                                line_search="bbm"),
-    # lbfgs inners: 40% fewer AL inner iterations AND a 35x better objective
-    # than apgd on the grid-network instance (BASELINE.md config-3 rows)
+    # lbfgs inners: fewer AL inner iterations AND a better objective than
+    # apgd on the grid-network instance
     "traffic": RunConfig(config="traffic", method="lbfgs"),
     "large": RunConfig(
         config="large", method="pgd",

@@ -3,7 +3,7 @@
 The certified-refine PCG (solvers.base.refine_polish, host path) and the
 certified-reference builders do hundreds of (S, n) x A^T A products on the
 host; scipy's csr_matvecs is single-threaded and loops RHS columns, which
-made the medium x32 certified polish SpMM-bound (~47 s measured round 4).
+made the medium x32 certified polish SpMM-bound.
 The native kernel (native/layout_kernels.cc::bsls_csr_matmat_f64) is
 row-parallel over OpenMP threads with an S-wide vectorised inner loop.
 """

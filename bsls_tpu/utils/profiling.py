@@ -11,7 +11,7 @@ from typing import Iterator, Optional
 
 import jax
 
-__all__ = ["trace", "cost_analysis", "roofline_summary"]
+__all__ = ["PEAKS", "trace", "cost_analysis", "device_peaks", "roofline_summary"]
 
 
 @contextlib.contextmanager
@@ -37,15 +37,36 @@ def cost_analysis(fn, *args, **kwargs) -> dict:
     return dict(ca or {})
 
 
-def roofline_summary(fn, *args, peak_flops: float = 197e12,
-                     hbm_bw: float = 819e9, **kwargs) -> dict:
-    """Compare a step's cost estimate with chip peaks (defaults: TPU v5e
-    bf16 MXU peak and HBM bandwidth) to bound achievable step time."""
+# Published peaks by ``device_kind`` as JAX reports it.  float32 FLOP/s is
+# the rate outside the tensor cores: the solver's products run at
+# Precision.HIGHEST, which keeps them off TF32.
+# Source: NVIDIA H100 Tensor Core GPU datasheet, SXM5 column (dense rates,
+# 700 W power limit).
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {"flops_f32": 67e12, "hbm_bytes_per_s": 3.35e12},
+}
+
+
+def device_peaks(device_kind: Optional[str] = None) -> dict:
+    """Peak rates of ``device_kind`` (default: the first JAX device).
+    A device that is not in PEAKS is an error, not a default."""
+    kind = device_kind if device_kind is not None else jax.devices()[0].device_kind
+    if kind not in PEAKS:
+        raise ValueError(f"no peak rates recorded for device kind {kind!r}; "
+                         f"known: {sorted(PEAKS)}")
+    return PEAKS[kind]
+
+
+def roofline_summary(fn, *args, device_kind: Optional[str] = None,
+                     **kwargs) -> dict:
+    """Compare a step's cost estimate with the device's peaks (PEAKS) to
+    bound achievable step time."""
+    peaks = device_peaks(device_kind)
     ca = cost_analysis(fn, *args, **kwargs)
     flops = float(ca.get("flops", 0.0))
     bytes_ = float(ca.get("bytes accessed", ca.get("bytes_accessed", 0.0)))
-    t_compute = flops / peak_flops if peak_flops else 0.0
-    t_memory = bytes_ / hbm_bw if hbm_bw else 0.0
+    t_compute = flops / peaks["flops_f32"]
+    t_memory = bytes_ / peaks["hbm_bytes_per_s"]
     return {
         "flops": flops,
         "bytes_accessed": bytes_,

@@ -93,8 +93,8 @@ def test_banded_multi_rhs(banded_prob):
 def test_banded_scenario_crossover_policy(banded_prob):
     """layout="auto" keeps the band for small scenario batches but falls
     back to the gather layout at S>=16 (band-tensor stream bytes don't
-    shrink with S while batching amortises the gathers — BASELINE.md
-    crossover measurement); layout="banded" still forces the band."""
+    shrink with S while batching amortises the gathers); layout="banded"
+    still forces the band."""
     p_small = synthetic.with_scenarios(banded_prob, 4, seed=7)
     assert isinstance(L.prepare(p_small).A, DeviceBanded)
     p_big = synthetic.with_scenarios(banded_prob, 16, seed=7)

@@ -210,8 +210,7 @@ def test_two_process_equality_constrained():
 
 
 def test_two_process_eq_checkpoint_resume(tmp_path):
-    """AL-level checkpoint/resume across a 2-process mesh (round-3 VERDICT
-    #4): a run truncated at 2 outers checkpoints (lam, x, rho); a fresh
+    """AL-level checkpoint/resume across a 2-process mesh: a run truncated at 2 outers checkpoints (lam, x, rho); a fresh
     2-process job resumes the multipliers and converges."""
     import glob as _glob
 

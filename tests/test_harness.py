@@ -193,6 +193,8 @@ def test_installed_cli_module(tmp_path):
         [sys.executable, "-m", "bsls_tpu", "--config", "tiny", "--method",
          "pgd", "--max-iter", "300", "--platform", "cpu"],
         capture_output=True, text=True, cwd=str(tmp_path), timeout=300,
+        env={**os.environ, "PYTHONPATH": os.pathsep.join(
+            p for p in (REPO, os.environ.get("PYTHONPATH")) if p)},
     )
     assert out.returncode == 0, out.stderr[-1500:]
     row = json.loads(out.stdout.strip().splitlines()[-1])
@@ -202,8 +204,7 @@ def test_installed_cli_module(tmp_path):
 def test_aot_executable_cache_prevents_recompiles():
     """Repeat solve() calls with identical shapes/options must reuse ONE
     AOT chunk executable — the eq-constrained AL loop calls solve once per
-    outer and used to recompile every time (BASELINE.md: warm AL(lbfgs)
-    93.7 s -> 4.3 s from this cache)."""
+    outer and used to recompile every time."""
     from bsls_tpu.solvers import base as base_mod
 
     prob = synthetic.tiny_dense(seed=0, num_blocks=12, dim=4, m=48)
@@ -247,7 +248,7 @@ def test_c_baseline_matches_oracle_objective():
     runner = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(runner)
     # well-conditioned instance (uniform demands): plain PGD, like the
-    # reference's, converges; the demand-scaled configs need the TPU build's
+    # reference's, converges; the demand-scaled configs need this build's
     # equilibration, which the C baseline intentionally lacks
     import scipy.sparse as sp
 
@@ -266,21 +267,36 @@ def test_c_baseline_matches_oracle_objective():
     assert rel <= 1e-5, (res["objective"], orc.objective)
 
 
-def test_compile_cache_enable(tmp_path, monkeypatch):
-    """Persistent-cache helper: idempotent, env-gated, creates the dir."""
-    import importlib
+def test_compile_cache_enable(monkeypatch):
+    """Without JAX_COMPILATION_CACHE_DIR the cache lands in the one fixed
+    in-checkout directory; idempotent."""
+    import jax
 
     from bsls_tpu.utils import compile_cache as cc
 
-    importlib.reload(cc)
-    monkeypatch.setenv("BSLS_COMPILE_CACHE_DIR", str(tmp_path / "jx"))
-    assert cc.enable_compile_cache() is True
-    assert (tmp_path / "jx").is_dir()
-    assert cc.enable_compile_cache() is True  # idempotent
-    importlib.reload(cc)
-    monkeypatch.setenv("BSLS_NO_COMPILE_CACHE", "1")
-    assert cc.enable_compile_cache() is False
-    importlib.reload(cc)  # leave a fresh module state for other tests
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        assert cc.DEFAULT_CACHE_DIR == os.path.join(REPO, ".jax_cache")
+        assert cc.enable_compile_cache() == cc.DEFAULT_CACHE_DIR
+        assert jax.config.jax_compilation_cache_dir == cc.DEFAULT_CACHE_DIR
+        assert os.path.isdir(cc.DEFAULT_CACHE_DIR)
+        assert cc.enable_compile_cache() == cc.DEFAULT_CACHE_DIR
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+
+
+def test_compile_cache_honours_env(tmp_path, monkeypatch):
+    """With JAX_COMPILATION_CACHE_DIR set, the helper uses it and sets no
+    directory of its own."""
+    import jax
+
+    from bsls_tpu.utils import compile_cache as cc
+
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "jx"))
+    before = jax.config.jax_compilation_cache_dir
+    assert cc.enable_compile_cache() == str(tmp_path / "jx")
+    assert jax.config.jax_compilation_cache_dir == before
 
 
 @pytest.mark.slow
